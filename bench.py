@@ -1,20 +1,23 @@
 #!/usr/bin/env python
-"""Benchmarks on the attached TPU chip.
+"""Benchmarks on the attached GPU.
 
-Default: cornell-box 1024x1024, 64 spp — prints ONE JSON line (the driver
-contract; this stays the LAST stdout line in every mode):
-  {"metric": "Mrays/s/chip", "value": N, "unit": "Mrays/s", "vs_baseline": N}
+Default: cornell-box 1024x1024, 64 spp — prints ONE JSON line (this stays
+the LAST stdout line in every mode):
+  {"metric": "Mrays/s/chip", "value": N, "unit": "Mrays/s",
+   "platform": "gpu", "device_kind": "...", "device_count": N, ...}
 
 --suite: all five BASELINE.json configs — one JSON line per config (stdout),
-full results in BENCH_SUITE.json, headline cornell line last. --quick
-divides the measured spp by 8 (throughput is steady-state per-pass, so
-Mrays/s is unaffected; time-to-image is extrapolated to the full spp).
+headline cornell line last. --quick divides the measured spp by 8
+(throughput is steady-state per-pass, so Mrays/s is unaffected;
+time-to-image is extrapolated to the full spp).
+
+Every line names the device it ran on. Off the GPU the script prints no
+metric line and exits non-zero: a CPU number is never reported as a
+device rate.
 
 Ray accounting is honest traced work: 1 primary ray per sample plus
 (1 path + 1 shadow) ray per active bounce, measured on-device by the
-integrator's instrumented counters — not max_bounces * R. `vs_baseline`
-is value / 100 (the BASELINE.json north-star target of 100 Mrays/s/chip;
-the reference CPU records no quantitative number, SURVEY §6).
+integrator's instrumented counters — not max_bounces * R.
 
 Usage: python bench.py [--width 1024] [--height 1024] [--spp 64]
                        [--scene scenes/cornell-box.obj] [--bounces 24]
@@ -40,8 +43,8 @@ def bench_render(scene_path, width, height, spp, bounces, spp_per_pass=None,
     """
     import jax
 
-    from mcpt_tpu.io.obj import load_scene
-    from mcpt_tpu.render.renderer import RenderConfig, Renderer
+    from mcpt.io.obj import load_scene
+    from mcpt.render.renderer import RenderConfig, Renderer
 
     t0 = time.perf_counter()
     scene = load_scene(scene_path, with_bvh=True)
@@ -72,10 +75,9 @@ def bench_render(scene_path, width, height, spp, bounces, spp_per_pass=None,
     compile_s = time.perf_counter() - t0
 
     # Measurement protocol: >= 3 timed repetitions (one pass each), report
-    # the MEDIAN per-pass rate with min/max. The relay's run-to-run variance
-    # is +-20-30%, which spans the 100 Mrays/s pass/fail line — a single
-    # timed rep is not evidence. Renderer.step() already syncs per pass
-    # (scalar readback), so per-pass timing adds no extra round trips.
+    # the MEDIAN per-pass rate with min/max — a single timed rep is not
+    # evidence. Renderer.step() already waits for the device per pass, so
+    # per-pass timing adds no extra round trips.
     n_passes = max(3, measured // spp_per_pass - 1)
     rates, pass_times = [], []
     for _ in range(n_passes):
@@ -142,9 +144,9 @@ def bench_inverse(steps_measure=25, steps_full=500, res=256, spp=4,
     import jax.numpy as jnp
     import numpy as np
 
-    from mcpt_tpu.diff.grad import SceneParams, extract_params, render_image
-    from mcpt_tpu.diff.inverse import make_inverse_step
-    from mcpt_tpu.io.obj import load_scene
+    from mcpt.diff.grad import SceneParams, extract_params, render_image
+    from mcpt.diff.inverse import make_inverse_step
+    from mcpt.io.obj import load_scene
 
     scene = load_scene("scenes/cornell-box.obj", with_bvh=True)
     cam = dc.replace(scene.camera, width=res, height=res)
@@ -180,8 +182,7 @@ def bench_inverse(steps_measure=25, steps_full=500, res=256, spp=4,
         radiance=jnp.where(params0.radiance > 0, rad0[None, :], 0.0),
         # vertices are NOT optimized in this config: carrying dverts
         # would differentiate every pixel w.r.t. every vertex (the heavy
-        # backward) only to mask the result to zero — measured 6x slower
-        # (round-4 kept it out by silently stripping; now it is explicit)
+        # backward) only to mask the result to zero
         dverts=None,
     )
     state = init(guess)
@@ -242,11 +243,8 @@ def bench_inverse(steps_measure=25, steps_full=500, res=256, spp=4,
 # The five BASELINE.json configs ("configs" list; see BASELINE.md).
 # quick_spp: spp actually measured under --quick (throughput is
 # steady-state per-pass, so Mrays/s is unaffected; time-to-image
-# extrapolates linearly). Bathroom gets the smallest sample because its
-# per-ray cost is ~100x cornell's (1M tris through the treelet kernel).
-# Bathroom runs LAST: it is the config most likely to trip the runtime's
-# per-execution wall-clock limit (the "worker crashed" failure mode), and a
-# dead backend would take every config after it down too. The headline
+# extrapolates linearly). Bathroom (1M tris through the BVH walk) gets the
+# smallest sample and runs last, as the slowest config. The headline
 # metric line is re-printed after the loop either way.
 SUITE = [
     dict(name="cornell-512-16", scene="scenes/cornell-box.obj",
@@ -260,6 +258,27 @@ SUITE = [
     dict(name="bathroom-1280x720-256", scene="scenes/bathroom-stress.obj",
          width=1280, height=720, spp=256, bounces=24, quick_spp=8),
 ]
+
+
+def device_fields() -> dict:
+    """platform / device_kind / device_count of the default backend."""
+    import jax
+
+    d = jax.devices()[0]
+    return {"platform": d.platform, "device_kind": d.device_kind,
+            "device_count": len(jax.devices())}
+
+
+def metric_line(res: dict, dev: dict) -> str:
+    return json.dumps({
+        "metric": "Mrays/s/chip",
+        "value": res["mrays_per_s"],
+        "unit": "Mrays/s",
+        "min": res.get("mrays_min"),
+        "max": res.get("mrays_max"),
+        "reps": res.get("reps"),
+        **dev,
+    })
 
 
 def main():
@@ -280,28 +299,25 @@ def main():
                          "per-parameter recovery error even under --quick")
     args = ap.parse_args()
 
-    import jax
+    from mcpt.compile_cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mcpt_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    enable_compile_cache()
+    dev = device_fields()
+    if dev["platform"] != "gpu":
+        sys.stderr.write(
+            f"[bench] no GPU: the default JAX backend is {dev['platform']}; "
+            "refusing to report a device rate\n"
+        )
+        sys.exit(2)
 
     if not args.suite:
         res = bench_render(
             args.scene, args.width, args.height, args.spp, args.bounces,
             spp_per_pass=args.spp_per_pass, save=args.save,
         )
-        print(json.dumps({
-            "metric": "Mrays/s/chip",
-            "value": res["mrays_per_s"],
-            "unit": "Mrays/s",
-            "vs_baseline": round(res["mrays_per_s"] / 100.0, 3),
-            "min": res["mrays_min"],
-            "max": res["mrays_max"],
-            "reps": res["reps"],
-        }))
+        print(metric_line(res, dev))
         return
 
-    results = []
     headline = None
     for cfg in SUITE:
         try:
@@ -323,23 +339,13 @@ def main():
         except Exception as e:  # noqa: BLE001 — record, keep going
             res = {"error": f"{type(e).__name__}: {e}"}
         res["config"] = cfg["name"]
-        results.append(res)
+        res.update(dev)
         if cfg.get("headline"):
             headline = res
         print(json.dumps(res), flush=True)
 
-    with open("BENCH_SUITE.json", "w") as f:
-        json.dump(results, f, indent=1)
     if headline and "mrays_per_s" in headline:
-        print(json.dumps({
-            "metric": "Mrays/s/chip",
-            "value": headline["mrays_per_s"],
-            "unit": "Mrays/s",
-            "vs_baseline": round(headline["mrays_per_s"] / 100.0, 3),
-            "min": headline.get("mrays_min"),
-            "max": headline.get("mrays_max"),
-            "reps": headline.get("reps"),
-        }))
+        print(metric_line(headline, dev))
 
 
 if __name__ == "__main__":

@@ -16,12 +16,17 @@ XML format matches reference src/model.cpp:211-281 (camera + top-level
 <light> elements); MTL matches src/model.cpp:158-209.
 
 Usage: python scenes/generate.py [--out scenes] [--stress-tris 1000000]
+
+bathroom-stress.obj (~300 MB) is not committed: `mcpt.io.obj.load_obj`
+calls `ensure_scene()` here, which makes it on first use (the same file as
+`--stress-tris 1000000`) and checks its SHA-256.
 """
 from __future__ import annotations
 
 import argparse
 import math
 import os
+import sys
 
 import numpy as np
 
@@ -430,12 +435,49 @@ def _hf_normal(dydx, dydz):
 
 
 def _checker_png(path, n=256, tiles=8):
-    from PIL import Image
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from mcpt.io.image import write_png
 
     ij = np.arange(n)
     cx = (ij[:, None] * tiles // n + ij[None, :] * tiles // n) % 2
     img = np.where(cx[..., None] == 0, np.array([235, 235, 230]), np.array([40, 60, 90]))
-    Image.fromarray(img.astype(np.uint8)).save(path)
+    return write_png(path, img.astype(np.uint8))
+
+
+BATHROOM_TRIS = 1_000_000
+# SHA-256 of bathroom-stress.obj at BATHROOM_TRIS, as committed before the
+# file was made generated: the goldens and results/ were rendered from it
+BATHROOM_SHA256 = "16aa801cfb89fe8745f0ee5820e319f87aa59c9ce72527a435cc83e77986dba6"
+
+
+def file_sha256(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 22), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def ensure_scene(path: str) -> str:
+    """Return `path`, first generating it if it is the bathroom-stress OBJ
+    and absent.
+
+    The ~1M-triangle OBJ (~300 MB) is not committed: it is made from its
+    seed (~40 s of host time) and must hash to BATHROOM_SHA256; a mismatch
+    (numpy's RNG or float formatting drifting) removes the file and raises.
+    """
+    if os.path.basename(path) == "bathroom-stress.obj" and not os.path.exists(path):
+        gen_stress(os.path.dirname(os.path.abspath(path)),
+                   target_tris=BATHROOM_TRIS)
+        got = file_sha256(path)
+        if got != BATHROOM_SHA256:
+            os.remove(path)
+            raise RuntimeError(
+                f"generated {path} has SHA-256 {got}, expected "
+                f"{BATHROOM_SHA256}: the scene is not the one the goldens "
+                "were rendered from")
     return path
 
 

@@ -2,7 +2,7 @@
 
 This is a from-the-spec reimplementation of /root/reference/src/Render.cpp's
 ACTIVE integrator (ray_tracing(Ray&), Render.cpp:111-175) used as a
-correctness anchor for the TPU integrator (SURVEY §7 step 2): float64, its
+correctness anchor for the JAX integrator (SURVEY §7 step 2): float64, its
 own RNG, no JAX. Images from the two implementations must agree statistically
 at equal spp (different RNG streams -> compare means/variances, not pixels).
 """

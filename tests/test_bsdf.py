@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcpt_tpu.render.bsdf import (
+from mcpt.render.bsdf import (
     Lobes,
     bsdf_fx,
     bsdf_pdf,
@@ -15,7 +15,7 @@ from mcpt_tpu.render.bsdf import (
     diffuse_pdf,
     glossy_pdf,
 )
-from mcpt_tpu.utils.math import PI
+from mcpt.utils.math import PI
 
 
 def _lobes(kd=(0.7, 0.7, 0.7), ks=(0.0, 0.0, 0.0), ns=1.0, n=1):

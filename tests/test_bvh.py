@@ -3,9 +3,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcpt_tpu.ops.bvh import _build_bvh_numpy, validate_bvh
-from mcpt_tpu.ops.intersect import any_hit_bruteforce, closest_hit_bruteforce
-from mcpt_tpu.ops.traverse import any_hit_bvh, closest_hit_bvh
+from mcpt.ops.bvh import _build_bvh_numpy, validate_bvh
+from mcpt.ops.intersect import any_hit_bruteforce, closest_hit_bruteforce
+from mcpt.ops.traverse import any_hit_bvh, closest_hit_bvh
 
 
 def _tri_bounds(v0, e1, e2):

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcpt_tpu.diff.grad import extract_params, render_image
+from mcpt.diff.grad import extract_params, render_image
 
 
 def _write_occluder_scene(dirp):
@@ -69,10 +69,10 @@ def _write_occluder_scene(dirp):
 
 @pytest.mark.slow
 def test_edge_term_recovers_occluder_gradient(tmp_path):
-    from mcpt_tpu.diff.edge import nee_visibility_edge_grad
-    from mcpt_tpu.io.obj import load_scene
-    from mcpt_tpu.ops.intersect import closest_hit
-    from mcpt_tpu.render.camera import generate_rays
+    from mcpt.diff.edge import nee_visibility_edge_grad
+    from mcpt.io.obj import load_scene
+    from mcpt.ops.intersect import closest_hit
+    from mcpt.render.camera import generate_rays
 
     scene = load_scene(_write_occluder_scene(str(tmp_path)), with_bvh=True)
     H = W = 16
@@ -220,18 +220,18 @@ def _write_two_occluder_scene(dirp):
 
 @pytest.mark.slow
 def test_general_silhouette_beats_convex_prototype(tmp_path):
-    """VERDICT r4 #5: with a second occluder shadowing part of occluder
+    """With a second occluder shadowing part of occluder
     A's boundary, the round-4 prototype path (given edges, centroid
     orientation, no mutual occlusion) mis-estimates d(Loss)/d(A); the
     general path (build_silhouette_tables + per-(x, edge) silhouette +
     any_hit mutual occlusion) matches the finite-difference truth."""
-    from mcpt_tpu.diff.edge import (
+    from mcpt.diff.edge import (
         build_silhouette_tables,
         nee_visibility_edge_grad,
     )
-    from mcpt_tpu.io.obj import load_scene
-    from mcpt_tpu.ops.intersect import closest_hit
-    from mcpt_tpu.render.camera import generate_rays
+    from mcpt.io.obj import load_scene
+    from mcpt.ops.intersect import closest_hit
+    from mcpt.render.camera import generate_rays
 
     scene = load_scene(_write_two_occluder_scene(str(tmp_path)), with_bvh=True)
     H = W = 16
@@ -311,13 +311,13 @@ def test_general_silhouette_beats_convex_prototype(tmp_path):
 
 def test_edge_term_wires_into_run_inverse(tmp_path):
     """The edge-aware visibility term plugs into run_inverse as an opt-in
-    extra_grad_fn (VERDICT r4 #5 'wire it into run_inverse')."""
+    extra_grad_fn."""
     import jax.numpy as jnp
 
-    from mcpt_tpu.diff.edge import make_nee_edge_term
-    from mcpt_tpu.diff.grad import render_image
-    from mcpt_tpu.diff.inverse import run_inverse
-    from mcpt_tpu.io.obj import load_scene
+    from mcpt.diff.edge import make_nee_edge_term
+    from mcpt.diff.grad import render_image
+    from mcpt.diff.inverse import run_inverse
+    from mcpt.io.obj import load_scene
 
     scene = load_scene(_write_occluder_scene(str(tmp_path)), with_bvh=True)
     key = jax.random.PRNGKey(0)

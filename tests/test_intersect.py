@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcpt_tpu.ops.intersect import (
+from mcpt.ops.intersect import (
     any_hit_bruteforce,
     closest_hit_bruteforce,
 )
@@ -35,7 +35,7 @@ def _np_moller_trumbore(v0, e1, e2, o, d, det_eps, t_min, t_max, closed_max):
 
 
 def _random_tri_scene(rng, T):
-    from mcpt_tpu.scene import Geometry, Materials, Scene, TextureAtlas, Camera
+    from mcpt.scene import Geometry, Materials, Scene, TextureAtlas, Camera
 
     v = rng.uniform(-1, 1, (T, 3, 3))
     v0 = v[:, 0]
@@ -122,7 +122,7 @@ def test_t_interval_semantics(rng):
     scene, *_ = _random_tri_scene(rng, 1)
     # single triangle at known location: z=0 plane triangle
     import jax.numpy as jnp
-    from mcpt_tpu.scene import Geometry
+    from mcpt.scene import Geometry
     import dataclasses
 
     geom = Geometry(
@@ -148,7 +148,7 @@ def test_t_interval_semantics(rng):
 def test_degenerate_triangle_rejected(rng):
     scene, *_ = _random_tri_scene(rng, 1)
     import dataclasses
-    from mcpt_tpu.scene import Geometry
+    from mcpt.scene import Geometry
 
     geom = Geometry(  # zero-area triangle
         v0=jnp.asarray([[0.0, 0.0, 0.0]]),
@@ -198,7 +198,7 @@ def test_f64_geometry_escape_hatch():
 
         import jax.numpy as jnp
 
-        from mcpt_tpu.ops.intersect import closest_hit_bruteforce
+        from mcpt.ops.intersect import closest_hit_bruteforce
 
         # triangle at large coordinates: f32 ulp there is ~1e-3
         base = 1.0e4
@@ -226,3 +226,25 @@ def test_f64_geometry_escape_hatch():
         assert o32[0, 1] == o32[1, 1], "offsets must be sub-f32-ulp"
     finally:
         jax.config.update("jax_enable_x64", False)
+
+
+@pytest.mark.parametrize("case", ["ties", "all_miss", "random"])
+def test_min_and_first_index_is_one_consistent_reduction(rng, case):
+    """The returned index always names a candidate whose t is the returned
+    minimum (the first such on ties), and a ray with no candidate gets
+    F32_MAX and no in-range index."""
+    from mcpt.ops.intersect import F32_MAX, _min_and_first_index
+
+    R, C = 64, 37
+    if case == "ties":
+        t = rng.integers(0, 3, (R, C)).astype(np.float32)
+    elif case == "all_miss":
+        t = np.full((R, C), F32_MAX, np.float32)
+    else:
+        t = np.where(rng.uniform(size=(R, C)) < 0.7, F32_MAX,
+                     rng.uniform(0, 10, (R, C))).astype(np.float32)
+    base = 100 + np.arange(C, dtype=np.int32)[None, :]
+    bt, idx = _min_and_first_index(jnp.asarray(t), jnp.asarray(base), axis=1)
+    bt, idx = np.asarray(bt), np.asarray(idx)
+    np.testing.assert_array_equal(bt, t.min(axis=1))
+    np.testing.assert_array_equal(idx, 100 + t.argmin(axis=1))

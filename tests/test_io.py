@@ -66,14 +66,14 @@ def test_obj_quad_fan(tmp_path):
         "v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nvn 0 0 1\nvt 0 0\n"
         "f 1/1/1 2/1/1 3/1/1 4/1/1\n"
     )
-    from mcpt_tpu.io.obj import load_obj
+    from mcpt.io.obj import load_obj
 
     host = load_obj(str(p))
     assert host.faces.shape[0] == 2
 
 
 def test_missing_xml_defaults(tmp_path):
-    from mcpt_tpu.io.obj import load_obj
+    from mcpt.io.obj import load_obj
 
     p = tmp_path / "bare.obj"
     p.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nvn 0 0 1\nvt 0 0\nf 1/1/1 2/1/1 3/1/1\n")
@@ -84,7 +84,7 @@ def test_missing_xml_defaults(tmp_path):
 
 def test_xml_multiroot_fragment(tmp_path):
     # reference XML files are multi-root fragments (camera + lights siblings)
-    from mcpt_tpu.io.obj import load_xml_camera
+    from mcpt.io.obj import load_xml_camera
 
     p = tmp_path / "s.xml"
     p.write_text(
@@ -101,7 +101,7 @@ def test_xml_multiroot_fragment(tmp_path):
 
 
 def test_tonemap_roundtrip():
-    from mcpt_tpu.io.image import tonemap
+    from mcpt.io.image import tonemap
 
     acc = np.array([[[0.25, 1.0, 4.0]]], np.float32) * 2.0
     out = tonemap(acc, 2.0)  # mean = (0.25, 1, 4) -> clamp -> sqrt
@@ -112,7 +112,7 @@ def test_load_hdr_flat_and_rle(tmp_path):
     """Radiance RGBE decode parity with stbi_loadf: c * 2^(e-136)."""
     import numpy as np
 
-    from mcpt_tpu.io.image import load_hdr
+    from mcpt.io.image import load_hdr
 
     H, W = 4, 16
     rng = np.random.default_rng(0)
@@ -146,3 +146,42 @@ def test_load_hdr_flat_and_rle(tmp_path):
     rle = tmp_path / "rle.hdr"
     rle.write_bytes(bytes(out))
     np.testing.assert_allclose(load_hdr(str(rle)), want, rtol=1e-6)
+
+
+def test_missing_obj_made_by_generator_beside_it(tmp_path):
+    """load_obj asks a generate.py in the scene's directory to make a
+    missing OBJ, so every entry point loads generated scenes the same way."""
+    from mcpt.io.obj import load_obj
+
+    (tmp_path / "generate.py").write_text(
+        "def ensure_scene(path):\n"
+        "    with open(path, 'w') as f:\n"
+        "        f.write('v 0 0 0\\nv 1 0 0\\nv 0 1 0\\nf 1 2 3\\n')\n"
+        "    return path\n")
+    host = load_obj(str(tmp_path / "made.obj"), use_native=False)
+    assert (tmp_path / "made.obj").exists()
+    assert len(host.faces) == 1
+
+
+def test_missing_obj_without_generator_fails(tmp_path):
+    from mcpt.io.obj import load_obj
+
+    with pytest.raises(FileNotFoundError):
+        load_obj(str(tmp_path / "absent.obj"), use_native=False)
+
+
+def test_generated_scene_hash_mismatch_raises(tmp_path, monkeypatch):
+    """A bathroom-stress OBJ whose bytes drift from the committed hash is
+    removed and refused."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(SCENES))
+    from scenes import generate
+
+    def fake_gen(out_dir, target_tris):
+        (tmp_path / "bathroom-stress.obj").write_text("v 0 0 0\n")
+
+    monkeypatch.setattr(generate, "gen_stress", fake_gen)
+    with pytest.raises(RuntimeError, match="SHA-256"):
+        generate.ensure_scene(str(tmp_path / "bathroom-stress.obj"))
+    assert not (tmp_path / "bathroom-stress.obj").exists()

@@ -1,4 +1,4 @@
-"""TPU integrator vs the independent f64 numpy oracle (tests/oracle.py).
+"""JAX integrator vs the independent f64 numpy oracle (tests/oracle.py).
 
 Different RNG streams -> images agree statistically, not pixelwise: channel
 means must match within MC standard error, and per-pixel means at higher spp
@@ -7,11 +7,11 @@ must correlate strongly.
 import numpy as np
 import pytest
 
-from mcpt_tpu.render.renderer import Renderer, RenderConfig
+from mcpt.render.renderer import Renderer, RenderConfig
 from tests.oracle import render_oracle
 
 
-def _tpu_image(scene, w, h, spp, bounces, seed=0):
+def _jax_image(scene, w, h, spp, bounces, seed=0):
     r = Renderer(scene, RenderConfig(max_bounces=bounces, width=w, height=h, seed=seed))
     for _ in range(spp):
         r.step()
@@ -21,7 +21,7 @@ def _tpu_image(scene, w, h, spp, bounces, seed=0):
 def test_cornell_mean_matches_oracle(cornell_scene):
     w = h = 32
     spp = 24
-    img_t = _tpu_image(cornell_scene, w, h, spp, bounces=12)
+    img_t = _jax_image(cornell_scene, w, h, spp, bounces=12)
     img_o = render_oracle(cornell_scene, w, h, spp, max_bounces=12, seed=99)
     mt = img_t.mean(axis=(0, 1))
     mo = img_o.mean(axis=(0, 1))
@@ -32,7 +32,7 @@ def test_cornell_mean_matches_oracle(cornell_scene):
 def test_cornell_pixels_correlate_with_oracle(cornell_scene):
     w = h = 24
     spp = 32
-    img_t = _tpu_image(cornell_scene, w, h, spp, bounces=10)
+    img_t = _jax_image(cornell_scene, w, h, spp, bounces=10)
     img_o = render_oracle(cornell_scene, w, h, spp, max_bounces=10, seed=7)
     # 4x4 block means average out per-pixel MC noise (effective spp x16)
     def blocks(im):
@@ -47,7 +47,7 @@ def test_cornell_pixels_correlate_with_oracle(cornell_scene):
 def test_veach_mean_matches_oracle(veach_scene):
     w, h = 32, 18
     spp = 32
-    img_t = _tpu_image(veach_scene, w, h, spp, bounces=6)
+    img_t = _jax_image(veach_scene, w, h, spp, bounces=6)
     img_o = render_oracle(veach_scene, w, h, spp, max_bounces=6, seed=3)
     # veach has high variance (tiny bright emitters); compare medians of the
     # tonemapped images plus means with loose tolerance

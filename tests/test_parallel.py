@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from mcpt_tpu.parallel.mesh import make_mesh
-from mcpt_tpu.parallel.shard import ShardedRenderer
-from mcpt_tpu.render.renderer import Renderer, RenderConfig
+from mcpt.parallel.mesh import make_mesh
+from mcpt.parallel.shard import ShardedRenderer
+from mcpt.render.renderer import Renderer, RenderConfig
 
 
 @pytest.fixture(scope="module")
@@ -96,3 +96,17 @@ def test_sharded_checkpoint_portable_across_mesh_shapes(cornell_scene, devices):
         np.asarray(jax.device_get(sr2.film.accum)), single,
         rtol=2e-6, atol=2e-6,
     )
+
+
+def test_sharded_steps_compile_once(cornell_scene, devices):
+    """The empty film has the layout a pass returns, so later passes reuse
+    the first pass's program (a second compile would land inside timed
+    windows, e.g. measure_throughput_scaling's)."""
+    from mcpt.parallel.shard import render_pass_sharded
+
+    sr = ShardedRenderer(cornell_scene, mesh=make_mesh(2, 2, devices=devices[:4]),
+                         width=16, height=16, max_bounces=2, spp_per_pass=2)
+    before = render_pass_sharded._cache_size()
+    for _ in range(3):
+        sr.step()
+    assert render_pass_sharded._cache_size() - before == 1

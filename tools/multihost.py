@@ -1,9 +1,9 @@
 """Two-process jax.distributed rendering demo (DCN-shaped collectives).
 
 The reference is single-process shared-memory OpenMP (src/Render.cpp:60-68);
-the TPU framework's multi-HOST path is the same shard_map program compiled
-over a global mesh whose devices live in different processes — collectives
-cross the process boundary exactly like they cross DCN between TPU hosts.
+the multi-HOST path is the same shard_map program compiled over a global
+mesh whose devices live in different processes — collectives cross the
+process boundary exactly like they cross the network between GPU hosts.
 
 Run: python tools/multihost.py
 Parent spawns 2 child processes (1 CPU device each -> 2 global devices).
@@ -38,9 +38,9 @@ def child(pid: int) -> None:
     import numpy as np
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from mcpt_tpu.io.obj import load_scene
-    from mcpt_tpu.parallel.mesh import make_mesh
-    from mcpt_tpu.parallel.shard import ShardedRenderer
+    from mcpt.io.obj import load_scene
+    from mcpt.parallel.mesh import make_mesh
+    from mcpt.parallel.shard import ShardedRenderer
 
     scene = load_scene(
         os.path.join(
@@ -53,7 +53,7 @@ def child(pid: int) -> None:
     cam = dc.replace(scene.camera, width=W, height=H)
     scene = dc.replace(scene, camera=cam)
 
-    # global mesh: 2 tiles x 1 spp, one device per process (DCN analog)
+    # global mesh: 2 tiles x 1 spp, one device per process
     mesh = make_mesh(2, 1, devices=jax.devices())
     sr = ShardedRenderer(scene, mesh=mesh, max_bounces=BOUNCES, spp_per_pass=SPP, seed=0)
     sr.render(SPP)

@@ -1,9 +1,8 @@
 """Apportion one wavefront-render chunk's device time by XLA op.
 
-VERDICT r3 #1: the bathroom e2e gap was unattributed. This captures a
-jax.profiler trace of ONE 32k-lane chunk execution (spp=1) and aggregates
-the TPU device lane's event durations by op name, printing the cost
-breakdown (treelet kernel / sort / gathers / integrator shell), plus the
+Captures a jax.profiler trace of ONE 32k-lane chunk execution (spp=1) and
+aggregates the GPU device lanes' event durations by op name, printing the
+cost breakdown (intersection / gathers / integrator shell), plus the
 wavefront iteration count so costs normalize to per-iteration.
 
 Usage: python tools/profile_pass.py [scene.obj] [--spp N] [--bounces N]
@@ -29,19 +28,20 @@ def main():
     ap.add_argument("--spp", type=int, default=1)
     ap.add_argument("--bounces", type=int, default=24)
     ap.add_argument("--chunk", type=int, default=32768)
-    ap.add_argument("--trace-dir", default="/tmp/mcpt_profile")
+    ap.add_argument("--trace-dir", default="mcpt_profile")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mcpt_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from mcpt.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     print("device:", jax.devices()[0])
 
-    from mcpt_tpu.io.obj import load_scene
-    from mcpt_tpu.render.renderer import _render_chunk
+    from mcpt.io.obj import load_scene
+    from mcpt.render.renderer import _render_chunk
 
     t0 = time.perf_counter()
     scene = load_scene(args.scene, with_bvh=True)
@@ -76,12 +76,12 @@ def main():
 
     # ---- capture one traced execution ----
     os.makedirs(args.trace_dir, exist_ok=True)
-    jax.profiler.start_trace(args.trace_dir)
+    jax.profiler.start_trace(args.trace_dir, create_perfetto_trace=True)
     run()
     jax.profiler.stop_trace()
 
     traces = sorted(
-        glob.glob(os.path.join(args.trace_dir, "**", "*.trace.json.gz"),
+        glob.glob(os.path.join(args.trace_dir, "**", "perfetto_trace.json.gz"),
                   recursive=True),
         key=os.path.getmtime,
     )
@@ -95,7 +95,7 @@ def main():
     for e in ev:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             pids[e["pid"]] = e["args"].get("name", "")
-    dev_pids = {p for p, n in pids.items() if "TPU" in (n or "")}
+    dev_pids = {p for p, n in pids.items() if "GPU" in (n or "")}
     tid_names = {}
     for e in ev:
         if e.get("ph") == "M" and e.get("name") == "thread_name":
